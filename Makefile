@@ -12,15 +12,15 @@ asan:
 	$(MAKE) -C oracle asan
 
 bench: oracle
-	JAX_COMPILATION_CACHE_DIR=$${JAX_COMPILATION_CACHE_DIR:-/tmp/jaxcache} python bench.py
+	python bench.py
 
 clip:
-	python tools/encoder.py /tmp/demo.h4m --width 320 --height 240 --gops IPBPB,IPP --audio-channels 2
+	python tools/encoder.py $${TMPDIR:-/tmp}/demo.h4m --width 320 --height 240 --gops IPBPB,IPP --audio-channels 2
 
 demo:
 	python examples/end_to_end.py
 
 clean:
 	$(MAKE) -C oracle clean
-	rm -f hvqm4_tpu/native/_entropy.so
+	rm -f hvqm4_jax/native/_entropy.so
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

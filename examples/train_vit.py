@@ -14,8 +14,12 @@ falls, without pretending to be a research result.
 
 Run:
     python examples/train_vit.py                    # single device
+    python examples/train_vit.py --dp 2 --tp 2      # needs 4 devices
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-        python examples/train_vit.py --dp 4 --tp 2  # virtual 8-device mesh
+        python examples/train_vit.py --dp 4 --tp 2  # virtual 8-device CPU mesh
+
+With fewer devices than dp*tp the example exits with an error; the virtual
+CPU mesh above is the way to run a mesh on a machine without that many.
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from hvqm4_tpu.config import SeqConfig  # noqa: E402
-from hvqm4_tpu.data import FrameBatchLoader  # noqa: E402
-from hvqm4_tpu.models.vit import (ViTConfig, init_vit,  # noqa: E402
+from hvqm4_jax.config import SeqConfig  # noqa: E402
+from hvqm4_jax.data import FrameBatchLoader  # noqa: E402
+from hvqm4_jax.models.vit import (ViTConfig, init_vit,  # noqa: E402
                                   shard_vit_params, vit_encode)
 
 
@@ -110,21 +114,11 @@ def main() -> int:
 
         n = args.dp * args.tp
         if len(jax.devices()) < n:
-            # single real chip (or a site override): fall back to virtual
-            # CPU devices for the sharding demo
-            import os
-
-            from jax.extend.backend import clear_backends
-
-            flags = os.environ.get("XLA_FLAGS", "")
-            if "xla_force_host_platform_device_count" not in flags:
-                os.environ["XLA_FLAGS"] = (
-                    flags + f" --xla_force_host_platform_device_count={n}"
-                ).strip()
-            jax.config.update("jax_platforms", "cpu")
-            clear_backends()
-        assert len(jax.devices()) >= n, (
-            f"need {n} devices, have {len(jax.devices())}")
+            print(f"need {n} devices for dp={args.dp} tp={args.tp}, JAX "
+                  f"sees {len(jax.devices())} "
+                  f"{jax.devices()[0].platform} device(s) (see the module "
+                  f"docstring for the virtual CPU mesh)", file=sys.stderr)
+            return 2
         devs = np.array(jax.devices()[:n]).reshape(args.dp, args.tp)
         mesh = Mesh(devs, ("dp", "tp"))
     import contextlib

@@ -3,7 +3,7 @@
  * The upstream reference mount was empty (SURVEY.md §0), so this oracle is an
  * independent implementation of docs/FORMAT.md and plays the role that
  * BASELINE.json assigns to "the C reference on CPU": ground truth for
- * bit-exactness, and the fps denominator for the ≥100x TPU target
+ * bit-exactness, and the fps denominator of the device pipeline's speed-up
  * (single-threaded, -O2, one frame at a time — the reference's execution
  * model per SURVEY.md §1).
  *
@@ -15,7 +15,7 @@
  *   hvqm4_oracle [--hash] [--csum] [--bench N] [--audio out.pcm] in.h4m [out.yuv]
  *     --hash      print per-frame FNV-1a hashes of decoded YUV
  *     --csum      print per-frame position-weighted checksums (the reduction
- *                 the TPU pipeline can compute on device; see wsum32 below)
+ *                 the device pipeline computes on device; see wsum32 below)
  *     --bench N   decode the file N times, print video fps
  *     --audio F   write decoded IMA-ADPCM audio as s16le interleaved PCM
  *
@@ -644,9 +644,9 @@ static uint32_t fnv1a(const uint8_t *d, size_t n, uint32_t h) {
 
 /* Position-weighted u32 sum (mod 2^32): csum = sum_i (d[i]+1) * (i*K + 1),
  * K = 2654435761 (Knuth). Unlike FNV-1a this is a commutative sum of
- * independent terms, so the TPU pipeline computes the identical value as one
+ * independent terms, so the device pipeline computes the identical value as one
  * on-device reduction and transfers 4 bytes per frame instead of the full
- * YUV (hvqm4_tpu/utils/hashing.py `wsum32` is the other implementation). */
+ * YUV (hvqm4_jax/utils/hashing.py `wsum32` is the other implementation). */
 static uint32_t wsum32(const uint8_t *d, size_t n) {
     uint32_t acc = 0;
     for (size_t i = 0; i < n; i++)

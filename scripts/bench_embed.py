@@ -1,8 +1,8 @@
-"""Config-5 throughput: .h4m streams → ViT embeddings, fps on the real chip.
+"""Config-5 throughput: .h4m streams → ViT embeddings, fps on the device.
 
 Measures `VideoEmbedPipeline` (multi-stream decode → YUV→RGB → resize →
 ViT encode, all pixels device-resident) end to end, host planning
-overlapped — the number BASELINE.md's config-5 row reports.
+overlapped (BASELINE.json config 5).
 
     python scripts/bench_embed.py [n_streams] [--clip PATH]
 
@@ -20,8 +20,9 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax"))
+from hvqm4_jax.utils.compile_cache import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 
 
 def main() -> None:
@@ -31,15 +32,12 @@ def main() -> None:
     ap.add_argument("--image-size", type=int, default=224)
     args = ap.parse_args()
 
-    from hvqm4_tpu.utils.backend import probe_backend
-    probe_backend()
-
     import jax
     import numpy as np
 
-    from hvqm4_tpu.container import Demuxer
-    from hvqm4_tpu.models.vit import ViTConfig
-    from hvqm4_tpu.pipeline import VideoEmbedPipeline
+    from hvqm4_jax.container import Demuxer
+    from hvqm4_jax.models.vit import ViTConfig
+    from hvqm4_jax.pipeline import VideoEmbedPipeline
 
     clip = pathlib.Path(args.clip).read_bytes()
     cfg = Demuxer(clip).info.cfg

@@ -2,10 +2,8 @@
 
 Stages one packed pass (one h2d per dtype), then times passes that
 REUSE the staged device arenas — zero transfer — so the number is what
-the chip+dispatch path could sustain if the link were free. Brackets
-the bench device phase: link floor = `device_upload_only_fps`
-(per-artifact, day-dependent), chip ceiling = this (stable; recorded in
-BASELINE.md).
+the device + dispatch path could sustain if the link were free: the
+ceiling above the bench device phase.
 
 Usage: HVQM4_BENCH_STREAMS=16 python scripts/compute_ceiling.py [passes]
 """
@@ -18,8 +16,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
+from hvqm4_jax.utils.compile_cache import use_compile_cache  # noqa: E402
+
 
 def main() -> None:
+    use_compile_cache()
     import jax
 
     from bench import _setup

@@ -24,10 +24,10 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from hvqm4_tpu.config import SeqConfig  # noqa: E402
-from hvqm4_tpu.container import ContainerError, Demuxer  # noqa: E402
-from hvqm4_tpu.native import NativePlanner  # noqa: E402
-from hvqm4_tpu.planner import PlannerError  # noqa: E402
+from hvqm4_jax.config import SeqConfig  # noqa: E402
+from hvqm4_jax.container import ContainerError, Demuxer  # noqa: E402
+from hvqm4_jax.native import NativePlanner  # noqa: E402
+from hvqm4_jax.planner import PlannerError  # noqa: E402
 from tools.encoder import make_clip  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]

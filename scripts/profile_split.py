@@ -1,6 +1,6 @@
 """One-off: measure the host-side cost split of the production pipeline.
 
-Times, per step over a real clip on the real chip:
+Times, per step over a real clip on the device:
   plan   — the batched C planner call (plan_step)
   xfer   — jnp.asarray of the two typed arenas (host->device serialization)
   step   — jitted step dispatch (async; queue cost only)
@@ -8,20 +8,21 @@ Times, per step over a real clip on the real chip:
 
 Run: python scripts/profile_split.py [n_streams]
 """
-import os
 import pathlib
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-
-import jax
-import jax.numpy as jnp
-
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from hvqm4_jax.utils.compile_cache import use_compile_cache  # noqa: E402
+
+use_compile_cache()
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
 from bench import ensure_clip, REPO  # noqa: E402
-from hvqm4_tpu.native import NativePlanner  # noqa: E402
-from hvqm4_tpu.parallel.multistream import (  # noqa: E402
+from hvqm4_jax.native import NativePlanner  # noqa: E402
+from hvqm4_jax.parallel.multistream import (  # noqa: E402
     MultiStreamDecoder, _arena_step)
 
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 8

@@ -11,11 +11,11 @@ presence, and all four mv encodings.
 import numpy as np
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.parallel import multistream as msm
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.parallel import multistream as msm
 from tools.encoder import make_clip
 
-pytest.importorskip("hvqm4_tpu.native")
+pytest.importorskip("hvqm4_jax.native")
 
 
 def _both_assemblies(ms, buf):
@@ -50,7 +50,7 @@ def _both_assemblies(ms, buf):
 
 
 def test_native_assemble_matches_numpy_all_variants():
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     cfg = SeqConfig(64, 48)
     # I steps (nest, no vectors), P steps (PACKED8), B steps with refsel-2

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hvqm4_tpu.audio import decode_record, encode_record
-from hvqm4_tpu.config import SeqConfig
+from hvqm4_jax.audio import decode_record, encode_record
+from hvqm4_jax.config import SeqConfig
 from tools.encoder import make_clip
 
 
@@ -31,7 +31,7 @@ def test_adpcm_vs_oracle(oracle_bin, tmp_path):
                    check=True)
     oracle_pcm = np.frombuffer(pcm_path.read_bytes(), "<i2").reshape(-1, 2)
 
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
     d = Demuxer(clip)
     recs = [decode_record(r.payload, 2) for r in d.audio_records()]
     py_pcm = np.concatenate(recs, axis=0)

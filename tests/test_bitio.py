@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from hvqm4_tpu.bitio import (
+from hvqm4_jax.bitio import (
     BitReader, BitWriter, HuffReader, HuffWriter, build_tree, code_table,
     decode_symbol, read_tree, write_tree,
 )

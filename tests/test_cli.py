@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hvqm4_tpu import cli
-from hvqm4_tpu.config import SeqConfig
+from hvqm4_jax import cli
+from hvqm4_jax.config import SeqConfig
 from tools.encoder import make_clip
 
 
@@ -105,7 +105,7 @@ def test_cli_transcode_roundtrip(tmp_path, clip_path, oracle_bin):
     rc = cli.main(["transcode", str(clip_path), str(out),
                    "--backend", "numpy", "--quality", "2"])
     assert rc == 0
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     d = Demuxer(out.read_bytes())
     assert d.info.cfg == SeqConfig(64, 48)
@@ -133,7 +133,7 @@ def test_cli_remote_roundtrip(tmp_path, capsys, clip_path):
     """`cli remote` decodes through a live service and writes the YUV."""
     import threading
 
-    from hvqm4_tpu import serve
+    from hvqm4_jax import serve
 
     srv = serve.DecodeServer(("127.0.0.1", 0), backend="numpy")
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -180,7 +180,7 @@ def test_cli_decode_y4m_and_frames(tmp_path):
     header, rest = data.split(b"\n", 1)
     # 33366 usec/frame -> 1000000/33366 reduced
     from fractions import Fraction
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     usec = Demuxer(clip.read_bytes()).info.usec_per_frame
     fps = Fraction(1_000_000, usec)
@@ -207,7 +207,7 @@ def test_cli_decode_start_time(tmp_path, capsys):
     cfg = SeqConfig(64, 48)
     clip = tmp_path / "c.h4m"
     clip.write_bytes(make_clip(cfg, ["IPP", "IP"], seed=57))
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     usec = Demuxer(clip.read_bytes()).info.usec_per_frame
     a = tmp_path / "a.yuv"
@@ -243,7 +243,7 @@ def test_cli_encode_from_y4m_roundtrip(tmp_path, capsys):
                      "--y4m"]) == 0
     out = tmp_path / "re.h4m"
     assert cli.main(["encode", str(y4m), str(out), "--quality", "0.5"]) == 0
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     info = Demuxer(out.read_bytes()).info
     assert (info.cfg.width, info.cfg.height) == (64, 48)
@@ -268,6 +268,33 @@ def test_cli_transcode_preserves_frame_rate(tmp_path):
     out = tmp_path / "t.h4m"
     assert cli.main(["transcode", str(src), str(out), "--backend", "numpy",
                      "--quality", "8"]) == 0
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     assert Demuxer(out.read_bytes()).info.usec_per_frame == 40000
+
+
+def test_cli_parser_platform_choices():
+    """`--platform` takes JAX's name for a CUDA device and the CPU, and
+    nothing else."""
+    ap = cli.build_parser()
+    assert ap.parse_args(["--platform", "gpu", "info", "c"]).platform == "gpu"
+    assert ap.parse_args(["--platform", "cpu", "info", "c"]).platform == "cpu"
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--platform", "rocm", "info", "c"])
+
+
+def test_cli_platform_gpu_without_card_fails(capsys, clip_path):
+    """Asked for a GPU where there is none, the CLI exits 1 and does no
+    work on the CPU."""
+    import subprocess
+    import sys
+
+    from .conftest import REPO
+
+    r = subprocess.run(
+        [sys.executable, "-m", "hvqm4_jax.cli", "--platform", "gpu", "info",
+         str(clip_path)], capture_output=True, text=True, timeout=120,
+        cwd=REPO)
+    assert r.returncode == 1
+    assert "--platform gpu: no gpu device" in r.stderr
+    assert r.stdout == ""

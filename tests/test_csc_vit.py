@@ -1,11 +1,11 @@
-"""YUV→RGB conversion (XLA + Pallas), resize, and the ViT feed (config 5)."""
+"""YUV→RGB conversion, resize, and the ViT feed (config 5)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hvqm4_tpu.models.vit import ViTConfig, init_vit, vit_encode
-from hvqm4_tpu.ops.csc import frame_to_rgb, resize_bilinear, yuv_to_rgb
+from hvqm4_jax.models.vit import ViTConfig, init_vit, vit_encode
+from hvqm4_jax.ops.csc import frame_to_rgb, resize_bilinear, yuv_to_rgb
 
 
 def _ref_rgb(y, u, v):
@@ -65,12 +65,14 @@ def test_vit_encode_shapes_and_grad_free_forward():
     assert np.array_equal(np.asarray(emb), np.asarray(emb2))
 
 
-def test_yuv_to_rgb_pallas_matches_xla():
-    from hvqm4_tpu.kernels.csc import yuv_to_rgb_pallas
-
+def test_frame_to_rgb_640x480_matches_bt601():
+    """A full 640x480 4:2:0 frame against the NumPy BT.601 reference."""
     rng = np.random.default_rng(5)
-    y, u, v = (jnp.asarray(rng.integers(0, 256, (36, 48), dtype=np.uint8))
-               for _ in range(3))
-    want = np.asarray(yuv_to_rgb(y, u, v))
-    got = np.asarray(yuv_to_rgb_pallas(y, u, v, interpret=True))
-    assert np.array_equal(want, got)
+    y = rng.integers(0, 256, (480, 640), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (240, 320), dtype=np.uint8)
+            for _ in range(2))
+    got = np.asarray(frame_to_rgb([jnp.asarray(y), jnp.asarray(u),
+                                   jnp.asarray(v)], 2, 2))
+    up = np.repeat(np.repeat(u, 2, 0), 2, 1)
+    vp = np.repeat(np.repeat(v, 2, 0), 2, 1)
+    assert np.array_equal(got, _ref_rgb(y, up, vp))

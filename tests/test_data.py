@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.data import FrameBatchLoader
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.data import FrameBatchLoader
 from tools.encoder import make_clip
 
 CFG = SeqConfig(64, 48)

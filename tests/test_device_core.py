@@ -1,13 +1,13 @@
 """JAX device core vs C oracle: full-clip bit-exactness (BASELINE configs 1-3).
 
 Runs on the XLA CPU backend here (conftest); the same integer ops are exact
-on TPU (bench.py re-verifies hashes on the real chip).
+on the GPU, where `chip_smoke.py` re-checks them against the oracle.
 """
 
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.session import (
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.session import (
     DecoderSession, HVQM4BuffSize, HVQM4DecodeIpic, HVQM4InitSeqObj,
     HVQM4SetBuffer,
 )
@@ -20,6 +20,8 @@ CASES = [
     (48, 64, 1, ["IPBPB"], 2),            # portrait nest, 4:4:4
     (320, 240, 2, ["I", "I"], 8),          # BASELINE config 1: I-only 320x240
     (128, 96, 2, ["IBBPBP", "IPPP"], 3),
+    (32, 16, 2, ["IPB"], 77),              # every frame type, tiny planes
+    (256, 192, 2, ["IP"], 79),             # 3072 luma blocks per plane
 ]
 
 
@@ -49,7 +51,7 @@ def test_sdk_shim_api(oracle_bin, tmp_path):
     assert HVQM4BuffSize(cfg) == 4 * cfg.frame_bytes + 38 * 70
     sess = HVQM4SetBuffer(cfg)
     clip = make_clip(cfg, ["I"], seed=10)
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     payload = next(Demuxer(clip).video_records()).payload
     frame = HVQM4DecodeIpic(sess, payload)

@@ -1,6 +1,6 @@
 """docs/API.md is import-verified: every `from <module> import <names>`
 line inside its code fences must resolve against the installed package —
-the doc can't drift from the API (VERDICT r3 next-steps #6)."""
+the doc can't drift from the API."""
 
 import importlib
 import pathlib
@@ -24,7 +24,7 @@ def test_api_md_imports_resolve():
     code = re.sub(r",\n\s+", ", ", code)
     checked = 0
     for mod_name, names in _IMPORT.findall(code):
-        if not mod_name.startswith(("hvqm4_tpu", "tools")):
+        if not mod_name.startswith(("hvqm4_jax", "tools")):
             continue
         mod = importlib.import_module(mod_name)
         for name in filter(None, (n.strip() for n in names.split(","))):
@@ -34,11 +34,11 @@ def test_api_md_imports_resolve():
 
 
 def test_api_md_dotted_references_resolve():
-    """Prose references like `hvqm4_tpu/session.py` must point at real
+    """Prose references like `hvqm4_jax/session.py` must point at real
     files; FORMAT.md section references in code must point at sections
     that exist."""
     md = (REPO / "docs" / "API.md").read_text()
-    for rel in set(re.findall(r"`(hvqm4_tpu/[\w/]+\.py)`", md)):
+    for rel in set(re.findall(r"`(hvqm4_jax/[\w/]+\.py)`", md)):
         assert (REPO / rel).exists(), f"API.md references missing file {rel}"
 
     fmt = (REPO / "docs" / "FORMAT.md").read_text()
@@ -48,7 +48,7 @@ def test_api_md_dotted_references_resolve():
     import subprocess
 
     out = subprocess.run(
-        ["grep", "-rhoE", r"FORMAT\.md §[0-9.]+", "hvqm4_tpu", "tools",
+        ["grep", "-rhoE", r"FORMAT\.md §[0-9.]+", "hvqm4_jax", "tools",
          "oracle"],
         cwd=REPO, capture_output=True, text=True).stdout
     assert out.strip(), "no FORMAT.md § citations found — grep broken?"

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.encode import VideoEncoder
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.encode import VideoEncoder
 
 from .conftest import golden_decode, run_oracle
 
@@ -48,8 +48,8 @@ def test_encode_roundtrip_quality(oracle_bin, tmp_path, gops):
 
     # quality: decoded luma should resemble the source (decode order vs
     # display order handled via display ids)
-    from hvqm4_tpu.container import Demuxer
-    from hvqm4_tpu.planner import Planner
+    from hvqm4_jax.container import Demuxer
+    from hvqm4_jax.planner import Planner
 
     order = [Planner(cfg).plan_frame(r.frame_char, r.payload).display_id
              for r in Demuxer(clip).video_records()]
@@ -94,8 +94,8 @@ def test_encode_with_audio_roundtrip(oracle_bin, tmp_path):
     """WAV audio muxes as per-block ADPCM records; the full clip (video +
     audio) still decodes bit-exact on the oracle and the audio tracks the
     source signal."""
-    from hvqm4_tpu.audio import decode_record
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.audio import decode_record
+    from hvqm4_jax.container import Demuxer
 
     cfg = SeqConfig(64, 48)
     gops = ["IPP", "IPP"]
@@ -132,8 +132,8 @@ def test_dc_shift_encoding_bitexact(oracle_bin, tmp_path):
     got = b"".join(f.tobytes() for f in golden_decode(cfg, clip))
     assert got == want
     # quality must stay in the same ballpark as shift 0 (coarse DCs only)
-    from hvqm4_tpu.container import Demuxer
-    from hvqm4_tpu.planner import Planner
+    from hvqm4_jax.container import Demuxer
+    from hvqm4_jax.planner import Planner
 
     order = [Planner(cfg).plan_frame(r.frame_char, r.payload).display_id
              for r in Demuxer(clip).video_records()]
@@ -146,7 +146,7 @@ def test_dc_shift_encoding_bitexact(oracle_bin, tmp_path):
 
 def test_rate_control_hits_target():
     """encode_to_size bisects lambda to a byte target within tolerance."""
-    from hvqm4_tpu.encode import encode_to_size
+    from hvqm4_jax.encode import encode_to_size
 
     cfg = SeqConfig(64, 48)
     frames = _synthetic_video(cfg, 5, seed=9)
@@ -163,8 +163,8 @@ def test_rate_control_hits_target():
 def test_inter_residuals_emitted_and_bitexact(oracle_bin, tmp_path):
     """The encoder spends AOT bases on MC residuals (FORMAT.md §7.4) where
     they pay, and the result still decodes bit-exactly vs the oracle."""
-    from hvqm4_tpu.container import Demuxer
-    from hvqm4_tpu.planner import Planner
+    from hvqm4_jax.container import Demuxer
+    from hvqm4_jax.planner import Planner
 
     cfg = SeqConfig(64, 48)
     # I frame with per-block-constant random DCs: encodes as weight blocks,
@@ -225,8 +225,8 @@ def test_psychovisual_weighting_roundtrip(oracle_bin, tmp_path):
 
     def textured_bases(clip):
         """AOT bases spent on the textured right half of the I frame."""
-        from hvqm4_tpu.container import Demuxer
-        from hvqm4_tpu.planner import Planner
+        from hvqm4_jax.container import Demuxer
+        from hvqm4_jax.planner import Planner
 
         rec = next(r for r in Demuxer(clip).video_records()
                    if r.frame_char == "I")

@@ -11,9 +11,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.container import ContainerError, Demuxer
-from hvqm4_tpu.planner import Planner, PlannerError
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.container import ContainerError, Demuxer
+from hvqm4_jax.planner import Planner, PlannerError
 from tools.encoder import make_clip
 
 from .conftest import REPO
@@ -142,7 +142,7 @@ def test_native_planner_survives_sliced_audio_bitflips():
     a sliced+audio clip must raise PlannerError (or decode) — never crash
     the process. Exercises the slice sub-table parser, the threaded-slice
     pool compaction, and the round-3 word-cursor aux reader."""
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     cfg = SeqConfig(64, 48)
     clip = make_clip(cfg, ["IPBPB", "IPP"], seed=8, slices=3,

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hvqm4_tpu.ops import device_core
-from hvqm4_tpu.refdec import mc_predict as mc_numpy
+from hvqm4_jax.ops import device_core
+from hvqm4_jax.refdec import mc_predict as mc_numpy
 
 
 def _mc_scalar(ref: np.ndarray, mv, bh, bw) -> np.ndarray:

@@ -3,9 +3,9 @@
 import jax
 import numpy as np
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.parallel.multistream import MultiStreamDecoder, shard_streams
-from hvqm4_tpu.session import DecoderSession
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.parallel.multistream import MultiStreamDecoder, shard_streams
+from hvqm4_jax.session import DecoderSession
 from tools.encoder import make_clip
 
 CFG = SeqConfig(64, 48)
@@ -67,7 +67,7 @@ def test_fused_dispatch_matches_single():
 
 
 def test_fused_dispatch_native_planner():
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     clips = [make_clip(CFG, ["IBBPBP", "IPP"], seed=13) for _ in range(3)]
     expected = [_single_stream_frames(CFG, c) for c in clips]
@@ -150,7 +150,7 @@ def test_sharded_multigop_bitexact_native():
     the same code `bench.py` runs single-chip."""
     from jax.sharding import Mesh
 
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     devs = np.array(jax.devices())[:4]
     mesh = Mesh(devs, ("dp",))
@@ -224,7 +224,7 @@ def _corrupt_second_block_stream_table(clip: bytes) -> bytes:
 def test_fused_dispatch_native_keeps_prefailure_frames():
     """Native fused dispatch must keep the frames a failing stream planned
     BEFORE the corrupt one (same contract as the Python fallback)."""
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     good = make_clip(CFG, ["IPP", "IPP"], seed=45)
     bad = _corrupt_second_block_stream_table(good)
@@ -242,8 +242,8 @@ def test_gop_parallel_skips_poisoned_lane():
     block's frames still stream out in decode order."""
     clip = make_clip(CFG, ["IPP", "IPP", "IPP"], seed=46)
     bad = _corrupt_second_block_stream_table(clip)
-    from hvqm4_tpu.parallel.multistream import decode_clip_gop_parallel
-    from hvqm4_tpu.planner import Planner
+    from hvqm4_jax.parallel.multistream import decode_clip_gop_parallel
+    from hvqm4_jax.planner import Planner
 
     want = _single_stream_frames(CFG, clip)
     got = list(decode_clip_gop_parallel(bad, max_streams=3,
@@ -258,8 +258,8 @@ def test_gop_parallel_skips_poisoned_lane():
 
 
 def test_gop_parallel_matches_sequential():
-    from hvqm4_tpu.parallel.multistream import decode_clip_gop_parallel
-    from hvqm4_tpu.planner import Planner
+    from hvqm4_jax.parallel.multistream import decode_clip_gop_parallel
+    from hvqm4_jax.planner import Planner
 
     clip = make_clip(CFG, ["IPB", "IPP", "IB" + "P" * 3, "I"], seed=77)
     want = _single_stream_frames(CFG, clip)
@@ -282,7 +282,7 @@ def test_gop_rejects_b_without_two_references():
     rejected at the encoder (FORMAT.md §10 makes such streams invalid)."""
     import pytest
 
-    from hvqm4_tpu.gop import reorder_display_to_decode
+    from hvqm4_jax.gop import reorder_display_to_decode
 
     for bad in ("IB", "IBB", "B"):
         with pytest.raises(ValueError, match="references|frame type"):
@@ -296,7 +296,7 @@ def test_multistream_poisons_b_without_references():
     """A stream whose records present a B before two anchors (possible via
     hand-built record lists / hostile containers) is poisoned, matching the
     oracle's rejection — frames before the invalid one still decode."""
-    from hvqm4_tpu.container import Demuxer
+    from hvqm4_jax.container import Demuxer
 
     clip = make_clip(CFG, ["IPB"], seed=88)
     recs = [(r.block_index, r.frame_char, r.payload)
@@ -321,7 +321,7 @@ def test_multistream_poisons_b_without_references():
 def test_wide_mv_variant_bitexact():
     """mv_extreme clips overflow the s8 packed tiers -> the step must pick
     the WIDE (two u32/MB) variant and still decode bit-exact."""
-    from hvqm4_tpu.parallel.multistream import _MV_WIDE
+    from hvqm4_jax.parallel.multistream import _MV_WIDE
 
     clips = [make_clip(CFG, ["IPPP"], seed=s, mv_extreme=True)
              for s in (5, 6)]
@@ -347,7 +347,7 @@ def test_wide_mv_variant_bitexact():
 def test_packed8_variant_on_p_steps():
     """P-only steps with small vectors pick PACKED8 (2 MBs/u32, no second
     vector) and I steps pick NONE + carry the nest."""
-    from hvqm4_tpu.parallel.multistream import _MV_NONE, _MV_PACKED8
+    from hvqm4_jax.parallel.multistream import _MV_NONE, _MV_PACKED8
 
     clip = make_clip(CFG, ["IPPP"], seed=9)
     expected = _single_stream_frames(CFG, clip)
@@ -386,7 +386,7 @@ def test_fused_dispatch_upload_not_inflated():
     violated this badly — a window-max tier applied to every slot made an
     I frame inflate all n*K slots' dc region 64x (measured 92.6 vs 55.6
     KB/frame on retail content at K=8)."""
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     clips = [make_clip(CFG, ["IPBPBPBP", "IPPP"], seed=s) for s in (3, 4)]
 
@@ -441,7 +441,7 @@ def test_prefetch_pool_matches_single():
 
 
 def test_prefetch_pool_native_planner():
-    from hvqm4_tpu.native import NativePlanner
+    from hvqm4_jax.native import NativePlanner
 
     clips = [make_clip(CFG, ["IBBPBP", "IPP"], seed=63) for _ in range(3)]
     expected = [_single_stream_frames(CFG, c) for c in clips]
@@ -511,3 +511,15 @@ def test_hd_resolution_bitexact(oracle_bin, tmp_path):
     from .conftest import run_oracle
 
     assert got == run_oracle(oracle_bin, clip, tmp_path)
+
+
+def test_per_mb_mv_grid_matches_oracle(oracle_bin, tmp_path):
+    """The arena path carries motion vectors per MACROBLOCK and expands
+    them in-jit; a tiny I/P/B clip through `run_pipelined` equals the
+    C oracle byte for byte."""
+    from .conftest import run_oracle
+
+    cfg = SeqConfig(32, 16)
+    clip = make_clip(cfg, ["IPB"], seed=78)
+    (got,) = _pipelined_frames(cfg, [clip])
+    assert b"".join(got) == run_oracle(oracle_bin, clip, tmp_path)

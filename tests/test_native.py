@@ -5,12 +5,12 @@ import time
 import numpy as np
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.container import Demuxer
-from hvqm4_tpu.planner import Planner, PlannerError
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.container import Demuxer
+from hvqm4_jax.planner import Planner, PlannerError
 from tools.encoder import make_clip
 
-native = pytest.importorskip("hvqm4_tpu.native")
+native = pytest.importorskip("hvqm4_jax.native")
 
 
 CASES = [

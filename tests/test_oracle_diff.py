@@ -7,7 +7,7 @@ must agree byte-for-byte on synthetic corpus clips covering every decode path.
 
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
+from hvqm4_jax.config import SeqConfig
 from tools.encoder import make_clip
 
 from .conftest import golden_decode, run_oracle
@@ -46,8 +46,8 @@ def test_mv_chain_wrap_conformance(oracle_bin, tmp_path):
     chain past the s16 range: every implementation must apply the
     normative wrap (FORMAT.md §7.2) identically — Python planner + golden
     vs C oracle here, and the native planner below."""
-    from hvqm4_tpu.native import NativePlanner
-    from hvqm4_tpu.planner import Planner
+    from hvqm4_jax.native import NativePlanner
+    from hvqm4_jax.planner import Planner
 
     cfg = SeqConfig(64, 48)
     for seed in (300, 301, 302):
@@ -56,7 +56,7 @@ def test_mv_chain_wrap_conformance(oracle_bin, tmp_path):
         got = b"".join(f.tobytes() for f in golden_decode(cfg, clip))
         assert oracle_yuv == got, f"seed {seed}"
         # the two host planners resolve identical (wrapped) vectors
-        from hvqm4_tpu.container import Demuxer
+        from hvqm4_jax.container import Demuxer
 
         ppl, npl = Planner(cfg), NativePlanner(cfg)
         for r in Demuxer(clip).video_records():
@@ -71,8 +71,8 @@ def test_reserved_fields_rejected(oracle_bin, tmp_path):
     (FORMAT.md §10): every implementation rejects, none crashes."""
     import subprocess
 
-    from hvqm4_tpu.native import NativePlanner
-    from hvqm4_tpu.planner import Planner, PlannerError
+    from hvqm4_jax.native import NativePlanner
+    from hvqm4_jax.planner import Planner, PlannerError
 
     cfg = SeqConfig(32, 16)
     clip = make_clip(cfg, ["IP"], seed=303)
@@ -82,7 +82,7 @@ def test_reserved_fields_rejected(oracle_bin, tmp_path):
         bad = bytearray(clip)
         bad[off] = 0x01
         bad = bytes(bad)
-        from hvqm4_tpu.container import Demuxer
+        from hvqm4_jax.container import Demuxer
 
         rec = next(iter(Demuxer(bad).video_records()))
         for planner in (Planner(cfg), NativePlanner(cfg)):
@@ -97,7 +97,7 @@ def test_reserved_fields_rejected(oracle_bin, tmp_path):
 
 def test_huffman_tree_caps():
     """Trees beyond the normative depth/size caps are invalid streams."""
-    from hvqm4_tpu.bitio import BitReader, BitWriter, read_tree, write_tree
+    from hvqm4_jax.bitio import BitReader, BitWriter, read_tree, write_tree
 
     # 66-deep right comb
     deep = 0

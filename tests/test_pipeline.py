@@ -3,9 +3,9 @@
 import jax
 import numpy as np
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.models.vit import ViTConfig
-from hvqm4_tpu.pipeline import VideoEmbedPipeline
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.models.vit import ViTConfig
+from hvqm4_jax.pipeline import VideoEmbedPipeline
 from tools.encoder import make_clip
 
 CFG = SeqConfig(64, 48)

@@ -5,8 +5,8 @@ import threading
 import numpy as np
 import pytest
 
-from hvqm4_tpu import serve
-from hvqm4_tpu.config import SeqConfig
+from hvqm4_jax import serve
+from hvqm4_jax.config import SeqConfig
 from tools.encoder import make_clip
 
 from .conftest import golden_decode
@@ -71,7 +71,7 @@ def test_serve_rejects_oversized(server):
 def test_serve_embeddings_mode():
     import struct
 
-    from hvqm4_tpu.models.vit import ViTConfig
+    from hvqm4_jax.models.vit import ViTConfig
 
     srv = serve.DecodeServer(("127.0.0.1", 0), backend="numpy",
                              vit_cfg=ViTConfig(image_size=32, patch_size=8,

@@ -2,8 +2,8 @@
 
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.session import DecoderSession
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.session import DecoderSession
 from tools.encoder import make_clip
 
 from .conftest import golden_decode, run_oracle

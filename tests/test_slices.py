@@ -14,9 +14,9 @@ import struct
 import numpy as np
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.container import Demuxer
-from hvqm4_tpu.planner import Planner, PlannerError
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.container import Demuxer
+from hvqm4_jax.planner import Planner, PlannerError
 from tools.encoder import make_clip
 
 from .conftest import golden_decode, run_oracle
@@ -44,7 +44,7 @@ def test_sliced_oracle_matches_golden(oracle_bin, tmp_path, w, h, samp, gops,
 @pytest.mark.parametrize("slices", [2, 4])
 @pytest.mark.parametrize("threads", ["1", "4"])
 def test_sliced_native_matches_python(slices, threads, monkeypatch):
-    native = pytest.importorskip("hvqm4_tpu.native")
+    native = pytest.importorskip("hvqm4_jax.native")
     monkeypatch.setenv("HVQM4_PLANNER_THREADS", threads)
     cfg = SeqConfig(64, 48)
     clip = make_clip(cfg, ["IPBPB"], seed=70 + slices, slices=slices)
@@ -101,8 +101,8 @@ def test_sliced_threaded_device_path_matches_oracle(oracle_bin, tmp_path,
     numbering the device recomputes from meta (`_derive_slots`); a
     mismatch anywhere shows up as wrong pixels here.
     """
-    native = pytest.importorskip("hvqm4_tpu.native")
-    from hvqm4_tpu.parallel.multistream import MultiStreamDecoder
+    native = pytest.importorskip("hvqm4_jax.native")
+    from hvqm4_jax.parallel.multistream import MultiStreamDecoder
     from .conftest import run_oracle
 
     monkeypatch.setenv("HVQM4_PLANNER_THREADS", "4")

@@ -8,7 +8,7 @@ with the parameters needed to reproduce.
 import numpy as np
 import pytest
 
-from hvqm4_tpu.config import SeqConfig
+from hvqm4_jax.config import SeqConfig
 from tools.encoder import make_clip
 
 from .conftest import golden_decode, run_oracle
@@ -43,9 +43,9 @@ def test_randomized_conformance(oracle_bin, tmp_path, seed):
 def test_randomized_native_vs_python(seed):
     """The C++ planner (post sparse-pool/batch rewrites) must emit exactly
     the Python planner's FramePlan on randomized streams."""
-    native = pytest.importorskip("hvqm4_tpu.native")
-    from hvqm4_tpu.container import Demuxer
-    from hvqm4_tpu.planner import Planner
+    native = pytest.importorskip("hvqm4_jax.native")
+    from hvqm4_jax.container import Demuxer
+    from hvqm4_jax.planner import Planner
 
     rng = np.random.default_rng(seed)
     w = 8 * int(rng.integers(1, 10))

@@ -5,8 +5,8 @@ import pytest
 import jax
 import numpy as np
 
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.models.vit import ViTConfig
+from hvqm4_jax.config import SeqConfig
+from hvqm4_jax.models.vit import ViTConfig
 from tools.encoder import make_clip
 
 from examples.train_vit import train

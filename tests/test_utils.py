@@ -2,7 +2,7 @@
 
 import time
 
-from hvqm4_tpu.utils.profiling import StageTimer
+from hvqm4_jax.utils.profiling import StageTimer
 
 
 def test_stage_timer_collects_and_reports():

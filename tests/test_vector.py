@@ -4,7 +4,7 @@ Guards against silent semantic drift: if any implementation change alters
 this decode, the appendix (and the format's meaning) changed with it.
 """
 
-from hvqm4_tpu.config import SeqConfig
+from hvqm4_jax.config import SeqConfig
 from tools.encoder import make_clip
 
 from .conftest import golden_decode, run_oracle

@@ -4,9 +4,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hvqm4_tpu.ops import device_core
-from hvqm4_tpu.refdec import aot_acc, weight_blocks
-from hvqm4_tpu.plans import PlanePlan
+from hvqm4_jax.ops import device_core
+from hvqm4_jax.refdec import aot_acc, weight_blocks
+from hvqm4_jax.plans import PlanePlan
 
 _W = [4, 1, 0, 0]
 

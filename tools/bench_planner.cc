@@ -4,7 +4,7 @@
 // a loop — no Python, no JAX — so gprof/perf see only the entropy hot loop.
 //
 //   g++ -std=c++17 -O3 -march=native -pthread [-pg] \
-//       -o /tmp/bench_planner tools/bench_planner.cc hvqm4_tpu/native/_entropy.cc
+//       -o /tmp/bench_planner tools/bench_planner.cc hvqm4_jax/native/_entropy.cc
 //   /tmp/bench_planner payloads.bin [reps]
 
 #include <chrono>

@@ -9,7 +9,7 @@ import struct
 import sys
 
 sys.path.insert(0, ".")
-from hvqm4_tpu.container import Demuxer  # noqa: E402
+from hvqm4_jax.container import Demuxer  # noqa: E402
 
 _CODE = {"I": 0, "P": 1, "B": 2}
 

@@ -23,9 +23,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from hvqm4_tpu.audio import encode_record  # noqa: E402
-from hvqm4_tpu.bitio import BitWriter, HuffWriter  # noqa: E402
-from hvqm4_tpu.config import (  # noqa: E402
+from hvqm4_jax.audio import encode_record  # noqa: E402
+from hvqm4_jax.bitio import BitWriter, HuffWriter  # noqa: E402
+from hvqm4_jax.config import (  # noqa: E402
     FRAME_B, FRAME_I, FRAME_P, HEADER_SIZE, MEDIA_AUDIO, MEDIA_VIDEO,
     N_STREAMS, SeqConfig,
 )
@@ -223,7 +223,7 @@ class FrameEncoder:
 # Clip assembly
 # ---------------------------------------------------------------------------
 
-from hvqm4_tpu.gop import reorder_display_to_decode  # noqa: E402,F401
+from hvqm4_jax.gop import reorder_display_to_decode  # noqa: E402,F401
 
 
 def make_clip(cfg: SeqConfig, gops: list[str], seed: int = 0,

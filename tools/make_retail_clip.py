@@ -9,7 +9,7 @@ dominant cost through a thin link, which misrepresents throughput on
 representative streams. This tool renders smooth synthetic video (moving
 gradients + a textured moving object — FMV-like statistics) and
 rate-controls it to a retail-like size, giving the benchmark suite a second
-operating point (BASELINE.md reports both).
+operating point (bench.py reports both).
 
 Run: python tools/make_retail_clip.py [--target-kb 340] [--iters 4]
 """
@@ -25,8 +25,8 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from hvqm4_tpu.config import SeqConfig  # noqa: E402
-from hvqm4_tpu.encode import encode_to_size  # noqa: E402
+from hvqm4_jax.config import SeqConfig  # noqa: E402
+from hvqm4_jax.encode import encode_to_size  # noqa: E402
 
 GOPS = ["IBBPBP" + "BP" * 8, "IPPPPP"]  # same GOP structure as ref640
 
@@ -78,7 +78,7 @@ def main() -> None:
                                    target_bytes=int(args.target_kb * 1024),
                                    iters=args.iters)
     else:
-        from hvqm4_tpu.encode import VideoEncoder
+        from hvqm4_jax.encode import VideoEncoder
 
         lam = args.lam
         clip = VideoEncoder(cfg, lambda_bits=lam).encode(frames, GOPS)

@@ -22,11 +22,11 @@ import sys
 import numpy as np
 
 sys.path.insert(0, ".")
-from hvqm4_tpu.config import SeqConfig  # noqa: E402
-from hvqm4_tpu.container import Demuxer  # noqa: E402
-from hvqm4_tpu.encode import VideoEncoder  # noqa: E402
-from hvqm4_tpu.planner import Planner  # noqa: E402
-from hvqm4_tpu.refdec import GoldenDecoder  # noqa: E402
+from hvqm4_jax.config import SeqConfig  # noqa: E402
+from hvqm4_jax.container import Demuxer  # noqa: E402
+from hvqm4_jax.encode import VideoEncoder  # noqa: E402
+from hvqm4_jax.planner import Planner  # noqa: E402
+from hvqm4_jax.refdec import GoldenDecoder  # noqa: E402
 
 
 def synth_frames(cfg: SeqConfig, n: int, seed: int):
@@ -98,7 +98,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lambdas", default="1,2,4,8,16")
     ap.add_argument("--yuv", default=None)
-    ap.add_argument("--tpu-search", action="store_true")
+    ap.add_argument("--device-search", action="store_true")
     args = ap.parse_args()
 
     cfg = SeqConfig(args.width, args.height)
@@ -113,7 +113,7 @@ def main() -> None:
     print(f"{'lambda':>7} {'bytes':>8} {'bpp':>6} {'psnr_db':>8}  modes")
     for lam in [float(x) for x in args.lambdas.split(",")]:
         enc = VideoEncoder(cfg, lambda_bits=lam, seed=args.seed,
-                           use_tpu_search=args.tpu_search)
+                           use_device_search=args.device_search)
         clip = enc.encode(frames, gops)
         psnr, modes = evaluate(cfg, clip, frames)
         bpp = 8.0 * len(clip) / npix
