@@ -188,16 +188,16 @@ def phase_multistream(smoke: Smoke, heavy: pathlib.Path,
     want = {p: oracle_lines(p, "hash") for p in (heavy, retail)}
     out = {"streams": n, "shape": f"{cfg.width}x{cfg.height}",
            "card": smoke.card}
-    for run in ("cold", "warm"):
+    # two runs: the first compiles (or loads the compile cache)
+    for run in ("first", "second"):
         ms = MultiStreamDecoder(cfg, clips, planner_factory=NativePlanner)
         t0 = time.perf_counter()
         got, frames = _decode_hashes(ms, n)
         dt = time.perf_counter() - t0
         for si, p in enumerate(paths):
             assert got[si] == want[p], (
-                f"K=1 {run} stream {si} ({p.name}): {len(got[si])} frames, "
-                f"first mismatch at "
-                f"{next((i for i, (a, b) in enumerate(zip(got[si], want[p])) if a != b), None)}")
+                f"K=1 {run} run, stream {si} ({p.name}): {len(got[si])} "
+                f"frames, not the oracle's")
         out[f"k1_{run}_smoke_fps"] = round(frames / dt, 1)
     out["k1_frames_bitexact"] = frames
 
@@ -205,7 +205,7 @@ def phase_multistream(smoke: Smoke, heavy: pathlib.Path,
     csum = batch_csum_fn()
     want_cs = oracle_lines(retail, "csum")
     rclip = retail.read_bytes()
-    for run in ("cold", "warm"):
+    for run in ("first", "second"):
         ms = MultiStreamDecoder(cfg, [rclip] * n,
                                 planner_factory=NativePlanner,
                                 steps_per_dispatch=k_fused)
@@ -216,7 +216,7 @@ def phase_multistream(smoke: Smoke, heavy: pathlib.Path,
         for si in range(n):
             got_cs = [f"{c:08x}" for c in allcs[:, si]]
             assert got_cs == want_cs, (
-                f"K={k_fused} {run} stream {si}: on-device checksums differ "
+                f"K={k_fused} {run} run, stream {si}: on-device checksums differ "
                 f"from oracle --csum")
         out[f"k{k_fused}_{run}_smoke_fps"] = round(allcs.size / dt, 1)
     out[f"k{k_fused}_frames_bitexact"] = int(allcs.size)
