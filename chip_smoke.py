@@ -24,9 +24,10 @@ verdict, its wall time and the seconds XLA spent compiling in it:
                 against the same search on the CPU
 
 With --four-cards only the sharded path runs (`__graft_entry__.
-multichip_check`): 16 streams over a dp=4 mesh (fused K=28 dispatch, one
-compiled step for the whole clip), then the ViT feed on a (dp=2, tp=2)
-mesh against one card.
+multichip_check`): 16 streams over a dp=4 mesh, once per step (K=1,
+the decoder's default dispatch with its pool-tier step variants) and once
+fused (K=28, one compiled step for the whole clip), then the ViT feed on a
+(dp=2, tp=2) mesh against one card.
 
 Frame rates printed here are smoke timings of one short run, shown beside
 the card's name and power limit; they are not benchmark numbers. The last
@@ -87,10 +88,9 @@ class Smoke:
 # ---------------------------------------------------------------------------
 
 def oracle_lines(clip: pathlib.Path, flag: str) -> list[str]:
-    res = subprocess.run([str(ORACLE), f"--{flag}", str(clip), "/dev/null"],
-                         check=True, capture_output=True, text=True)
-    return [ln.split(f"{flag}=")[1] for ln in res.stdout.splitlines()
-            if f"{flag}=" in ln]
+    from hvqm4_jax.utils.hashing import oracle_digests
+
+    return oracle_digests(ORACLE, clip, flag)
 
 
 def oracle_frames(clip: pathlib.Path, frame_bytes: int) -> list[bytes]:
@@ -157,20 +157,6 @@ def phase_build() -> dict:
             "planner": native._LIB.name}
 
 
-def _decode_hashes(ms, n: int) -> tuple[list[list[str]], int]:
-    """Run a decoder to the end, fetch every frame, FNV-1a each."""
-    from hvqm4_jax.utils.hashing import fnv1a_hex
-
-    got: list[list[str]] = [[] for _ in range(n)]
-    for frames, _metas, valid in ms.run_pipelined():
-        fnp = [np.asarray(p) for p in frames]
-        for si, ok in enumerate(valid):
-            if ok:
-                got[si].append(fnv1a_hex(b"".join(
-                    fnp[pi][si].tobytes() for pi in range(3))))
-    return got, sum(len(g) for g in got)
-
-
 def phase_multistream(smoke: Smoke, heavy: pathlib.Path,
                       retail: pathlib.Path, n: int = 8,
                       k_fused: int = 28) -> dict:
@@ -180,7 +166,7 @@ def phase_multistream(smoke: Smoke, heavy: pathlib.Path,
     from hvqm4_jax.container import Demuxer
     from hvqm4_jax.native import NativePlanner
     from hvqm4_jax.parallel.multistream import MultiStreamDecoder
-    from hvqm4_jax.utils.hashing import batch_csum_fn
+    from hvqm4_jax.utils.hashing import batch_csum_fn, stream_hashes
 
     paths = [heavy if i % 2 == 0 else retail for i in range(n)]
     clips = [p.read_bytes() for p in paths]
@@ -192,7 +178,8 @@ def phase_multistream(smoke: Smoke, heavy: pathlib.Path,
     for run in ("first", "second"):
         ms = MultiStreamDecoder(cfg, clips, planner_factory=NativePlanner)
         t0 = time.perf_counter()
-        got, frames = _decode_hashes(ms, n)
+        got, _last = stream_hashes(ms.run_pipelined(), n)
+        frames = sum(map(len, got))
         dt = time.perf_counter() - t0
         for si, p in enumerate(paths):
             assert got[si] == want[p], (
@@ -264,11 +251,9 @@ def phase_serve(heavy: pathlib.Path, retail: pathlib.Path,
 
     cfg = Demuxer(retail.read_bytes()).info.cfg
     want = {p: oracle_lines(p, "hash") for p in (heavy, retail)}
-    # the first batches of a cold process compile for minutes, longer than
-    # the service's default idle-connection timeout between requests
     srv = serve.DecodeServer(("127.0.0.1", 0), backend="jax",
                              batch_window_s=0.05, max_batch=8,
-                             vit_cfg=vit_cfg, socket_timeout_s=900.0)
+                             vit_cfg=vit_cfg)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     host, port = srv.server_address
@@ -362,7 +347,7 @@ def phase_nest_search(heavy: pathlib.Path) -> dict:
 
 
 def phase_four_cards(heavy: pathlib.Path, retail: pathlib.Path,
-                     vit_cfg, ks=(28,)) -> dict:
+                     vit_cfg, ks=(1, 28)) -> dict:
     import jax
 
     import __graft_entry__ as graft
@@ -375,7 +360,8 @@ def phase_four_cards(heavy: pathlib.Path, retail: pathlib.Path,
 
 
 def result_line(devices) -> dict:
-    """The last line of a passing run: the device as JAX reports it."""
+    """The last line of a passing run: the devices it ran on, as JAX
+    reports them."""
     return {"ok": True, "device": {"platform": devices[0].platform,
                                    "kind": devices[0].device_kind,
                                    "count": len(devices)}}
@@ -423,7 +409,7 @@ def main(argv=None) -> int:
                       "all_phases_ok": smoke.ok}), flush=True)
     if not smoke.ok:
         return 1
-    print(json.dumps(result_line(jax.devices())), flush=True)
+    print(json.dumps(result_line(jax.devices()[:cards])), flush=True)
     return 0
 
 

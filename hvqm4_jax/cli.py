@@ -416,12 +416,12 @@ def _verify_device(cfg, data: bytes, clip_path: Path) -> int:
 
     from .parallel.multistream import MultiStreamDecoder
     from .planner import default_planner_factory
-    from .utils.hashing import batch_csum_fn, oracle_csums, wsum32
+    from .utils.hashing import batch_csum_fn, oracle_digests, wsum32
 
     oracle = Path(__file__).resolve().parent.parent / "oracle" / "hvqm4_oracle"
     golden = "C oracle"
     if oracle.exists():
-        want = oracle_csums(oracle, clip_path)
+        want = oracle_digests(oracle, clip_path, "csum")
     else:
         golden = "NumPy golden"
         sess = DecoderSession(cfg, backend="numpy")

@@ -52,6 +52,7 @@ from __future__ import annotations
 import argparse
 import hmac
 import json
+import select
 import signal
 import socket
 import socketserver
@@ -243,13 +244,16 @@ class _Handler(socketserver.BaseRequestHandler):
             reply(GOODBYE, STATUS_AUTH, [b"authentication required"])
             return
         srv.count("mux_sessions")
+        inflight: set = set()  # this session's requests not yet replied
         with cf.ThreadPoolExecutor(max_workers=srv.mux_workers) as ex:
             while True:
                 try:
+                    if not self._await_request(lambda: bool(inflight)):
+                        break  # idle past socket_timeout_s
                     hdr = _recv_exact(self.request, 12)
                 except OSError:
                     # clean close between frames == implicit goodbye; also
-                    # covers an idle socket timeout (TimeoutError) and the
+                    # covers a header stalled mid-way (TimeoutError) and the
                     # reply-failure shutdown above — none of which may leak
                     # to handle() (it would inject an H4MR frame)
                     break
@@ -268,7 +272,31 @@ class _Handler(socketserver.BaseRequestHandler):
                 except BaseException:
                     srv.ingress.release()
                     raise
-                ex.submit(self._mux_one, reply, req_id, mode, clip)
+                fut = ex.submit(self._mux_one, reply, req_id, mode, clip)
+                inflight.add(fut)
+                fut.add_done_callback(inflight.discard)
+
+    def _await_request(self, busy, poll_s: float = 0.25) -> bool:
+        """Wait until the next mux request header is readable (or EOF).
+
+        The idle limit `socket_timeout_s` counts only the time in which
+        `busy()` is false: while one of the session's own requests is still
+        decoding — or compiling, which a cold process does for minutes — the
+        client is waiting on us, not idle, and closing the session would
+        fail its next request. Returns False once idle past the limit."""
+        limit = self.server.socket_timeout_s
+        if limit is None:
+            return True  # no idle limit: the blocking recv waits
+        ready = select.poll()  # poll, not select: no FD_SETSIZE ceiling
+        ready.register(self.request, select.POLLIN)
+        idle_since = time.monotonic()
+        while not ready.poll(1000 * min(limit, poll_s)):
+            now = time.monotonic()
+            if busy():
+                idle_since = now
+            elif now - idle_since >= limit:
+                return False
+        return True
 
     def _mux_one(self, reply, req_id: int, mode: int, clip: bytes) -> None:
         """Decode one multiplexed request (ingress slot held by caller)."""

@@ -57,17 +57,34 @@ def wsum32_hex(data: bytes) -> str:
     return f"{wsum32(data):08x}"
 
 
-def oracle_csums(oracle_path, clip_path) -> list[str]:
-    """Per-frame `csum=%08x` digests from `oracle --csum` — the ONE parse
-    of that output format (bench's hash phase and `cli verify --device`
-    both compare against it)."""
+def oracle_digests(oracle_path, clip_path, flag: str) -> list[str]:
+    """Per-frame digests from `oracle --hash` (flag "hash": FNV-1a) or
+    `oracle --csum` (flag "csum": wsum32) — the ONE parse of that output
+    format (bench's hash phase, `cli verify --device`, `chip_smoke.py` and
+    `__graft_entry__` all compare against it)."""
     import subprocess
 
-    res = subprocess.run([str(oracle_path), "--csum", str(clip_path),
+    res = subprocess.run([str(oracle_path), f"--{flag}", str(clip_path),
                           "/dev/null"],
                          check=True, capture_output=True, text=True)
-    return [line.split("csum=")[1] for line in res.stdout.splitlines()
-            if "csum=" in line]
+    return [line.split(f"{flag}=")[1] for line in res.stdout.splitlines()
+            if f"{flag}=" in line]
+
+
+def stream_hashes(batches, n_streams: int):
+    """FNV-1a of every valid frame of every stream, from (frames, metas,
+    valid) batches as `MultiStreamDecoder.run_pipelined()` yields them.
+    Returns (per-stream lists of hex digests, the last batch's planes on
+    the host)."""
+    got: list[list[str]] = [[] for _ in range(n_streams)]
+    fnp = None
+    for frames, _metas, valid in batches:
+        fnp = [np.asarray(p) for p in frames]
+        for si, ok in enumerate(valid):
+            if ok:
+                got[si].append(fnv1a_hex(b"".join(
+                    p[si].tobytes() for p in fnp)))
+    return got, fnp
 
 
 def batch_csum_fn():

@@ -53,11 +53,13 @@ def test_alone_without_the_repository_fails(tmp_path):
     assert r.stdout == ""
 
 
-def test_result_line_keys():
-    line = chip_smoke.result_line(jax.devices())
+@pytest.mark.parametrize("cards", [1, 4])
+def test_result_line_keys(cards):
+    """The count is the devices the run used, not all that JAX sees."""
+    line = chip_smoke.result_line(jax.devices()[:cards])
     assert set(line) == {"ok", "device"}
     assert set(line["device"]) == {"platform", "kind", "count"}
-    assert line["device"]["count"] == len(jax.devices())
+    assert line["device"]["count"] == cards < len(jax.devices())
     assert json.loads(json.dumps(line)) == line
 
 
@@ -89,8 +91,9 @@ def test_phase_nest_search(clips):
 
 
 def test_phase_four_cards_on_virtual_devices(clips):
-    """16 streams over dp=4, then the (dp=2, tp=2) ViT, on 4 of the 8
-    virtual CPU devices."""
+    """16 streams over dp=4 at K=1 and fused K=28, then the (dp=2, tp=2)
+    ViT, on 4 of the 8 virtual CPU devices."""
     out = chip_smoke.phase_four_cards(*clips, SMALL_VIT)
     assert out["decode_mesh"] == "dp=4" and out["vit_mesh"] == "dp=2 tp=2"
-    assert out["frames_bitexact"] == 8 * 10 + 8 * 8
+    assert out["dispatch"] == [1, 28]
+    assert out["frames_bitexact"] == 2 * (8 * 10 + 8 * 8)

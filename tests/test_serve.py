@@ -409,6 +409,40 @@ def test_serve_mux_idle_timeout_clean_close():
         srv.shutdown()
 
 
+def test_serve_mux_slow_request_keeps_session_open():
+    """A request that decodes for longer than socket_timeout_s (as a cold
+    server compiles for minutes) is not idleness: the session must stay
+    open, and a request the client sends after that reply still succeeds."""
+    import time
+
+    srv = serve.DecodeServer(("127.0.0.1", 0), backend="numpy",
+                             socket_timeout_s=0.5)
+    orig = srv.decode
+    calls = []
+
+    def slow_first(clip, mode):
+        calls.append(mode)
+        if len(calls) == 1:
+            time.sleep(1.5)  # three idle limits
+        return orig(clip, mode)
+
+    srv.decode = slow_first
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        host, port = srv.server_address
+        cfg = SeqConfig(64, 48)
+        clip = make_clip(cfg, ["IP"], seed=142)
+        want = [f.tobytes() for f in golden_decode(cfg, clip)]
+        with serve.MuxClient(host, port) as mc:
+            assert mc.decode(clip, timeout=60) == want
+            assert mc.decode(clip, timeout=60) == want
+        assert len(calls) == 2
+        assert serve.fetch_metrics(host, port)["errors"] == 0
+    finally:
+        srv.shutdown()
+
+
 def test_serve_mux_close_drains_inflight():
     """close() right after pipelined submits must let the server drain and
     reply (goodbye + wait for server EOF), not RST the socket — the server
